@@ -1,10 +1,10 @@
-"""mjmpc_tpu — a TPU-native sampling-based MPC framework.
+"""mjmpc_tpu — a sampling-based MPC framework on accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 mohakbhardwaj/mjmpc (sampling-based model-predictive control for robotics):
 
 - ``ops``:       math kernels (discounted cost-to-go, AR-filtered noise,
-                 Gaussian utilities) with Pallas TPU fast paths.
+                 Gaussian utilities) and the fused Pallas rollout kernels.
 - ``envs``:      batched, differentiable dynamics written as pure JAX
                  functions (analytic classic-control models plus a
                  Featherstone articulated-body engine for MuJoCo-style

@@ -15,7 +15,7 @@ Joint types:
     free   — 7 qpos (parent-frame position + unit quaternion) / 6 qvel
              (parent-frame linear velocity + body-frame angular velocity)
 
-Design, TPU-first:
+Design, accelerator-first:
 - everything is fixed-shape dense linear algebra over [nv]-sized arrays,
   vmapped over thousands of particles — no per-body Python objects, no
   dynamic control flow; topology (qpos/qvel layout included) is static
@@ -311,8 +311,8 @@ def _fk_dofs(model: ChainModel, q: jax.Array,
     metadata, so branching and joint-type selection happen at trace time
     and the whole kinematics fuses into one XLA computation — a lax.scan
     here would serialize tiny kernels and dominate latency. HIGHEST
-    matmul precision: at the TPU default (bf16 passes) the composed
-    rotations drift ~0.2% and the error compounds through the mass
+    matmul precision: at a reduced default (bf16 passes, or TF32 on a
+    GPU) the composed rotations drift ~0.2% and the error compounds through the mass
     matrix, AD bias, and every integration substep.
     """
     n = model.n_joints

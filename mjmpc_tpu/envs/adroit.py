@@ -3,7 +3,7 @@
 The reference's pen/relocate/hammer/door run on the external mj_envs
 24-DOF Adroit Shadow Hand (README.md:33-35, examples/configs/hand/
 pen-v0.yml "In-hand manipulation of a 6-DOF pen with a 24-DOF Shadow
-Hand"). This module provides the TPU-native counterpart used by those
+Hand"). This module provides the JAX-native counterpart used by those
 tasks, matching Adroit's 24-hinge-DOF budget with the Shadow Hand's
 allocation: a 2-DOF wrist (flexion about x + deviation about y, shared
 root of all digits), three 4-DOF fingers (abduction + three phalanx

@@ -286,8 +286,6 @@ def _build_fused_rollout(model: rb.ChainModel):
 
     fused.substep_parts = roll.substep_parts   # FLOP accounting
     # (harness.forest_perf traces the substep outside pallas)
-    fused.cpu_auto = False   # XLA-CPU codegen of this kernel
-    # takes >10 min (see solvers/base.py auto gate); TPU/Mosaic is fine
     fused.dynamic_fields = ("kp", "kd", "mu")   # read at call time via
     # extras — dyn-randomizing only these keeps the fast path
     return fused

@@ -213,10 +213,9 @@ def _build_fused_rollout(model: rb.ChainModel):
     """Fused Pallas rollout for pen-v0 (ops/pallas_forest.py): the whole
     N-particle H-step contact rollout — the wrist-rooted 24-DOF hand tree,
     the free quaternion pen, the 14-pair contact assembly of `_ext_forces`, and
-    the pen cost — in ONE kernel. The XLA path materializes every
-    per-particle FK/contact intermediate in HBM (and at 21 bodies the
-    episode-scale program overwhelms the remote TPU worker); the kernel
-    keeps all of it in registers/VMEM. kp/kd/mu AND the pen radius ride
+    the pen cost — in ONE kernel. The XLA path sends every per-particle
+    FK/contact intermediate through device memory; the kernel keeps all
+    of it in registers. kp/kd/mu AND the pen radius ride
     the extras vector, so contact-gain sweeps and the reference's
     geom_friction/geom_size dynamics randomization
     (gym_env_wrapper.py:392-400) keep the fast path; only rigid-body
@@ -289,8 +288,6 @@ def _build_fused_rollout(model: rb.ChainModel):
 
     fused.substep_parts = roll.substep_parts   # FLOP accounting
     # (harness.forest_perf traces the substep outside pallas)
-    fused.cpu_auto = False   # XLA-CPU codegen of this kernel
-    # takes >10 min (see solvers/base.py auto gate); TPU/Mosaic is fine
     fused.dynamic_fields = ("kp", "kd", "mu", "pen_r")   # param leaves the
     # kernel reads at CALL time (via extras) — dyn-randomizing only these
     # keeps the fused fast path (harness/episode.py:_fused_mode)

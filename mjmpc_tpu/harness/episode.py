@@ -139,9 +139,9 @@ def run_episodes(solver, env: Env, n_episodes: int, episode_length: int,
     else:
         # Chunked execution: one compile unit of `chunk_size` steps,
         # host-chained. Heavy envs (contact + AD bias + long horizons)
-        # can exceed the remote worker's compile limits as one fused
-        # T-step program; the per-chunk program is T/chunk_size smaller
-        # and carries (env_state, solver_state) exactly.
+        # compile slowly as one fused T-step program; the per-chunk
+        # program is T/chunk_size smaller and carries (env_state,
+        # solver_state) exactly.
         step_fn = _build_step_fn(solver, env, sim_env=sim_env, guard=guard,
                                  fused=fused)
 

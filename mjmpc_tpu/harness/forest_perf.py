@@ -1,7 +1,7 @@
 """Forest-kernel (hand suite) performance accounting: FLOPs + timings.
 
-VERDICT r4 weak #4: the contact-forest kernels (ops/pallas_forest.py —
-pen/relocate/hammer/door) had no perf story. This driver produces one:
+For the contact-forest kernels (ops/pallas_forest.py — pen/relocate/
+hammer/door) this driver reports:
 
 1. **Exact FLOP count per particle-substep**, by tracing the kernel's own
    per-substep lane function (`rollout.substep_parts`) OUTSIDE pallas
@@ -9,15 +9,12 @@ pen/relocate/hammer/door) had no perf story. This driver produces one:
    the kernel's real arithmetic — the block-sparse tree Cholesky, the
    5-tree mass/RNEA blocks, the contact assembly — not a dense-path
    estimate. Transcendentals (sin/cos/tanh/sqrt/rsqrt) are counted as 1
-   FLOP each (the VPU executes them as multi-pass sequences, so the
-   VPU-work figure below is a LOWER bound).
+   FLOP each, so the FLOP figure is a LOWER bound on the work.
 2. **Read-verified rollout timings** at the reference config shape
-   (N=100) and at batch scale (N=1024), H=32, on the current backend.
-3. The derived roofline position: particle-substeps/s x FLOP/substep =
-   sustained FLOP/s, vs the v5e VPU's ~7.4 TFLOP/s f32 elementwise peak
-   (8 lanes x 128 sublanes... 4 MXU-independent VPU issue = 928 ops/cycle
-   x 940 MHz x 8 cores); and HBM traffic per rollout (noise in + costs
-   out) showing the kernel is compute-bound, not bandwidth-bound.
+   (N=100) and at batch scale (N=1024), H=32, on the current device:
+   the median of several windows after a discarded warm-up window.
+3. Sustained FLOP/s (particle-substeps/s x FLOP/substep) and the
+   device-memory traffic per rollout (noise in + costs out).
 
 Usage:
   python -m mjmpc_tpu.harness.forest_perf [--envs pen-v0,...] [--flops-only]
@@ -34,10 +31,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import envs
+from ..utils import runtime
 
-_PANEL = (8, 128)   # one (sublanes, lanes) tile = 1024 particles' worth
-                    # of lane arithmetic per primitive element... the
-                    # jaxpr counts ELEMENTS, so panel size cancels out.
+_BLOCK = (128,)   # a particle block for tracing; the jaxpr counts
+                  # ELEMENTS, so the block size cancels out
 
 # primitive -> FLOPs per output element (elementwise view; integer/
 # layout/control primitives count 0)
@@ -47,7 +44,7 @@ _FLOP_PRIMS = {
     "sqrt": 1, "rsqrt": 1, "sin": 1, "cos": 1, "tan": 1, "tanh": 1,
     "exp": 1, "log": 1, "pow": 1, "integer_pow": 1, "logistic": 1,
     "select_n": 1, "clamp": 2, "atan2": 1,
-    # comparisons feed selects; count them (they occupy VPU issue slots)
+    # comparisons feed selects; count them (they occupy issue slots)
     "lt": 1, "le": 1, "gt": 1, "ge": 1, "eq": 1, "ne": 1,
 }
 
@@ -84,33 +81,33 @@ def substep_flops(env) -> dict:
         q, qd = {}, {}
         for i in range(mc["n"]):
             if mc["jtype"][i] == 2:
-                q[i] = ([jnp.zeros(_PANEL) for _ in range(3)],
-                        [jnp.ones(_PANEL)] + [jnp.zeros(_PANEL)] * 3)
-                qd[i] = ([jnp.zeros(_PANEL) for _ in range(3)],
-                         [jnp.zeros(_PANEL) for _ in range(3)])
+                q[i] = ([jnp.zeros(_BLOCK) for _ in range(3)],
+                        [jnp.ones(_BLOCK)] + [jnp.zeros(_BLOCK)] * 3)
+                qd[i] = ([jnp.zeros(_BLOCK) for _ in range(3)],
+                         [jnp.zeros(_BLOCK) for _ in range(3)])
             else:
-                q[i] = jnp.zeros(_PANEL)
-                qd[i] = jnp.zeros(_PANEL)
+                q[i] = jnp.zeros(_BLOCK)
+                qd[i] = jnp.zeros(_BLOCK)
         return q, qd
 
     n_extras = 8   # upper bound; extras indexing is python-level
-    u = {b: jnp.zeros(_PANEL) for b in parts["act_bodies"]}
+    u = {b: jnp.zeros(_BLOCK) for b in parts["act_bodies"]}
 
     def one_substep(q, qd, u, extras):
         return pf._substep(mc, q, qd, u, parts["force_fn"], extras,
                            parts["joint_torque_fn"])
 
     q, qd = build_state()
-    extras = [jnp.zeros(_PANEL) for _ in range(n_extras)]
+    extras = [jnp.zeros(_BLOCK) for _ in range(n_extras)]
     jaxpr = jax.make_jaxpr(one_substep)(q, qd, u, extras)
-    flops_panel = _count_jaxpr_flops(jaxpr.jaxpr)
-    per_particle = flops_panel / float(np.prod(_PANEL))
+    flops_block = _count_jaxpr_flops(jaxpr.jaxpr)
+    per_particle = flops_block / float(np.prod(_BLOCK))
     # cost_fn + its FK run once per control step (after n_substeps)
     def cost_step(q, qd, extras):
         rots, poss, _, _ = pf._fk(mc, q)
         return parts["cost_fn"](q, qd, rots, poss, extras)
     cost_jaxpr = jax.make_jaxpr(cost_step)(q, qd, extras)
-    cost_pp = _count_jaxpr_flops(cost_jaxpr.jaxpr) / float(np.prod(_PANEL))
+    cost_pp = _count_jaxpr_flops(cost_jaxpr.jaxpr) / float(np.prod(_BLOCK))
     return dict(flops_per_particle_substep=round(per_particle, 1),
                 cost_flops_per_particle_step=round(cost_pp, 1),
                 n_substeps=parts["n_substeps"])
@@ -118,16 +115,15 @@ def substep_flops(env) -> dict:
 
 def time_rollout(env, n: int, horizon: int, iters: int = 20,
                  windows: int = 3) -> float:
-    """Read-verified seconds per fused rollout call — MIN over several
-    windows (the remote runtime's first window after a shape change has
-    been observed 10x slow: executor warmup, not kernel time)."""
+    """Read-verified seconds per fused rollout call: the median over
+    `windows` timing windows after one discarded warm-up window."""
     rng = np.random.default_rng(0)
     d = env.d_action
     mean = jnp.asarray(rng.normal(size=(horizon, d)) * 0.1, jnp.float32)
     noise = jnp.asarray(rng.normal(size=(n, horizon, d)) * 0.2, jnp.float32)
     state = env.init(env.params, jax.random.PRNGKey(0))
     roll = jax.jit(env.fused_rollout)
-    best = None
+    times = []
     for w in range(windows + 1):   # window 0 is the warmup, discarded
         acc = None
         start = time.perf_counter()
@@ -139,14 +135,11 @@ def time_rollout(env, n: int, horizon: int, iters: int = 20,
         if not np.isfinite(val):
             raise RuntimeError(f"{env.name}: non-finite rollout costs")
         if w > 0:
-            best = dt if best is None else min(best, dt)
-    return best
+            times.append(dt)
+    return float(np.median(times))
 
 
 _DEFAULT_ENVS = ("pen-v0", "relocate-v0", "hammer-v0", "door-v0")
-_VPU_PEAK_F32 = 7.4e12   # v5e VPU elementwise f32 (public spec-derived:
-                         # 8 cores x (8x128x4) ALUs x ~0.94 GHz x 2 is
-                         # bf16 MXU territory; elementwise f32 ~= 7-8T)
 
 
 def main(argv=None):
@@ -156,30 +149,27 @@ def main(argv=None):
                    help="skip device timings (CPU-safe)")
     p.add_argument("--horizon", type=int, default=32)
     args = p.parse_args(argv)
+    runtime.enable_compile_cache()
+    device = runtime.device_info()
 
     rows = []
     for name in args.envs.split(","):
         name = name.strip()
         env = envs.make(name)
-        row = dict(metric=f"forest_kernel[{name}]", unit="report")
-        try:
-            row.update(substep_flops(env))
-        except Exception as e:
-            row["flops_error"] = str(e)[:200]
+        row = dict(metric=f"forest_kernel[{name}]", unit="report",
+                   **device)
+        row.update(substep_flops(env))
         if not args.flops_only:
             for n in (100, 1024):
                 dt = time_rollout(env, n, args.horizon)
-                ps = n * args.horizon * row.get("n_substeps", 5)
-                rate = ps / dt
-                fl = row.get("flops_per_particle_substep", 0.0)
-                row[f"rollout_ms_N{n}"] = round(dt * 1e3, 3)
-                row[f"particle_substeps_per_s_N{n}"] = round(rate, 0)
-                row[f"sustained_tflops_N{n}"] = round(rate * fl / 1e12, 3)
-                row[f"vpu_peak_pct_N{n}"] = round(
-                    100.0 * rate * fl / _VPU_PEAK_F32, 2)
-                # HBM traffic: noise in [N,H,dA] f32 + costs out [N,H]
+                rate = n * args.horizon * row["n_substeps"] / dt
+                fl = row["flops_per_particle_substep"]
+                row[f"rollout_ms_N{n}"] = dt * 1e3
+                row[f"particle_substeps_per_s_N{n}"] = rate
+                row[f"sustained_tflops_N{n}"] = rate * fl / 1e12
+                # device memory: noise in [N,H,dA] f32 + costs out [N,H]
                 nbytes = 4.0 * (n * args.horizon * (env.d_action + 1))
-                row[f"hbm_gb_per_s_N{n}"] = round(nbytes / dt / 1e9, 3)
+                row[f"memory_gb_per_s_N{n}"] = nbytes / dt / 1e9
         rows.append(row)
         print(json.dumps(row), flush=True)
     return rows

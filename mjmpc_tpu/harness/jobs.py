@@ -21,13 +21,14 @@ import argparse
 import itertools
 import json
 import os
+import tempfile
 from datetime import datetime
 from typing import Any, Dict, List
 
 import numpy as np
 
 from .. import envs
-from ..utils import get_logger
+from ..utils import get_logger, runtime
 from . import config as cfg
 from .episode import run_episodes
 
@@ -130,7 +131,7 @@ def main(argv=None):
     parser.add_argument("--controller", type=str, default="mppi")
     parser.add_argument("--job_mode", type=str, default=None,
                         help="tune | sweep (default: config job_mode)")
-    parser.add_argument("--save_dir", type=str, default="/tmp")
+    parser.add_argument("--save_dir", type=str, default=tempfile.gettempdir())
     args = parser.parse_args(argv)
 
     exp_params = cfg.load_config(args.config)
@@ -162,4 +163,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 from datetime import datetime
 
 import numpy as np
 import yaml
 
 from .. import envs, solvers
-from ..utils import get_logger, timeit
+from ..utils import get_logger, runtime, timeit
 from . import config as cfg
 from .episode import run_episodes
 
@@ -32,7 +33,8 @@ def main(argv=None):
                         help="yaml file with experiment parameters")
     parser.add_argument("--dyn_randomize_config", type=str, default=None,
                         help="yaml file with dynamics randomization parameters")
-    parser.add_argument("--save_dir", type=str, default="/tmp",
+    parser.add_argument("--save_dir", type=str,
+                        default=tempfile.gettempdir(),
                         help="folder to save data in")
     parser.add_argument("--controller", type=str, default="mppi",
                         help="controller(s) to run, comma separated")
@@ -133,4 +135,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

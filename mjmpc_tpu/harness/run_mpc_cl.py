@@ -14,13 +14,14 @@ from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 from datetime import datetime
 
 import jax
 import numpy as np
 
 from .. import envs, solvers
-from ..utils import get_logger, timeit
+from ..utils import get_logger, runtime, timeit
 from . import config as cfg
 from .episode import build_episode_fn
 
@@ -43,7 +44,7 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Closed-loop MPC driver")
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--controller", type=str, default="reinforce")
-    parser.add_argument("--save_dir", type=str, default="/tmp")
+    parser.add_argument("--save_dir", type=str, default=tempfile.gettempdir())
     args = parser.parse_args(argv)
 
     exp_params = cfg.load_config(args.config)
@@ -92,4 +93,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

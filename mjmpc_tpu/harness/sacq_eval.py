@@ -32,6 +32,7 @@ import numpy as np
 
 from .. import envs, solvers
 from ..rl.sac_mpc import SACMPC
+from ..utils import runtime
 from .episode import run_episodes
 
 
@@ -106,4 +107,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

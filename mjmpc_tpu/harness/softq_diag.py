@@ -36,6 +36,7 @@ import numpy as np
 
 from .. import envs, ops, solvers
 from ..rollout.engine import _scan_rollout
+from ..utils import runtime
 
 
 def obs_stats_from_random(env, n_steps: int = 200, seed: int = 0):
@@ -158,4 +159,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

@@ -12,8 +12,10 @@ from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 
 from .. import envs, render
+from ..utils import runtime
 from . import config as cfg
 from .episode import run_episodes
 
@@ -22,7 +24,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--controller", type=str, default="mppi")
-    parser.add_argument("--out", type=str, default="/tmp/mjmpc_vids")
+    parser.add_argument("--out", type=str,
+                        default=os.path.join(tempfile.gettempdir(),
+                                             "mjmpc_vids"))
     parser.add_argument("--episodes", type=int, default=None,
                         help="number of episodes to render")
     args = parser.parse_args(argv)
@@ -41,4 +45,5 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    runtime.enable_compile_cache()
     main()

@@ -51,8 +51,9 @@ def cost_to_go(cost_seq: jax.Array, gamma_seq) -> jax.Array:
     Here it is one [.., H] @ [H, H] contraction against the discount
     matrix, exact at gamma=0 and fused by XLA into the surrounding solve.
 
-    HIGHEST precision is mandatory: at the TPU's default matmul precision
-    (bf16 passes) this contraction errs by O(1) on realistic cost scales
+    HIGHEST precision is mandatory: at a reduced default matmul precision
+    (bf16 passes, or TF32 on a GPU) this contraction errs by O(1) on
+    realistic cost scales
     and even gamma=0 is no longer a passthrough — softmax weights,
     elite top-k, and argmin selections all read these values.
     """

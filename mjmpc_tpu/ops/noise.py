@@ -11,8 +11,7 @@ with eps[:, 0], eps[:, 1] left unfiltered, and the previous values being the
 
 Here the sampler is a pure function of a JAX PRNG key; the recurrence is a
 `lax.scan` over the horizon with the (particles, action-dim) axes vectorized
-— on TPU the scan body is a fused VPU op over N*dA lanes. A Pallas fused
-kernel for the full sample+filter lives in ops/pallas_kernels.py.
+— XLA fuses the scan body into one elementwise kernel over N*dA elements.
 The reference's exact NumPy procedure (global reseed + multivariate_normal)
 is reproduced host-side in oracle/numpy_ref.py for parity tests.
 """
@@ -65,13 +64,15 @@ def gaussian_noise(key: jax.Array, cov: jax.Array, shape: tuple, dtype=jnp.float
     # matrices via SVD, Cholesky does not).
     jitter = 1e-6 * jnp.eye(d_action, dtype=cov.dtype)
     chol = jnp.linalg.cholesky(cov + jitter)
-    return white @ chol.T.astype(dtype)
+    # HIGHEST: a GPU runs a default-precision f32 product in TF32
+    return jnp.matmul(white, chol.T.astype(dtype),
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def filtered_noise(key: jax.Array, cov: jax.Array, shape: tuple,
                    filter_coeffs: Sequence[float] = (1.0, 0.0, 0.0),
                    dtype=jnp.float32) -> jax.Array:
-    """Sample AR(2)-filtered Gaussian noise: the TPU-native counterpart of
+    """Sample AR(2)-filtered Gaussian noise: the counterpart of
     reference generate_noise(cov, filter_coeffs, shape, base_seed).
 
     Seeding discipline: callers derive `key` with jax.random.fold_in from the

@@ -8,12 +8,11 @@ hammer) whose only coupling to the actuated trees is the explicit
 contact force — exactly `engine.chain.step` with an `ext_force_fn`
 (envs/pen.py:_ext_forces and friends), fused into ONE kernel.
 
-WHY: the XLA path materializes every per-particle FK/mass/contact
-intermediate in HBM with (8,128)-tile padding; at nq=27 the hand envs
-were measured at ~2.8 us/particle-substep (and at 21 bodies the
-episode-scale program crashes the remote TPU worker outright). Here the
-whole N-particle H-step rollout keeps q, qd and all intermediates in
-registers/VMEM: HBM traffic is noise-in + costs-out.
+WHY: the XLA path runs every substep as many kernels over [N, ...]
+arrays and sends every per-particle FK/mass/contact intermediate
+through device memory between them. Here each GPU thread keeps one
+particle's q, qd and all intermediates in registers for the whole
+H-step rollout: device-memory traffic is noise-in + costs-out.
 
 The physics exploits the forest block structure the XLA path cannot:
 the joint-space mass matrix is BLOCK-DIAGONAL (one block per tree —
@@ -40,32 +39,29 @@ tests/test_pallas_forest.py, and the engine itself against the C++
 floating-base RNEA oracle).
 
 Contact callbacks are written in the kernel's lane dialect (a 3-vector
-is a python list of three [TILE_N] arrays): the generic builder
+is a python list of three [block_n] arrays): the generic builder
 computes every contact point's world position/velocity and hands them
 to an env-supplied `force_fn`; the returned per-point forces are
 scattered through the point Jacobians (hinge/slide: a_d x (p - o_d);
 free: tau_lin = f, tau_ang = l x R^T f — the transpose of the
 right-trivialized point velocity map, engine/chain.py:504-528).
 
-Matches `engine.chain.step` + env cost to f32 tolerance; the kernel
-runs in interpreter mode off-TPU so the parity tests are CI-runnable
+Matches `engine.chain.step` + env cost to f32 tolerance; the kernel is
+compiled through Pallas's Triton route on the GPU and runs in the
+Pallas interpreter on the CPU, where the parity tests run
 (tests/test_pallas_forest.py).
 """
 from __future__ import annotations
 
-import functools
-from typing import Callable, List, Sequence, Tuple
+from typing import List, Sequence
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pallas_chain import (_LANES, _TILE_N, _const_vec, _interpret, _mm,
-                           _mtv, _mv, _pack_lanes, _panel, _rodrigues,
-                           _round_up, _unpack_panel, _vadd, _vcross,
-                           _vdot, _vscale, _vsub, _world_inertia)
+from .kernel_path import rollout_call
+from .pallas_chain import (_const_vec, _mm, _mtv, _mv, _rodrigues, _vadd,
+                           _vcross, _vdot, _vscale, _vsub, _world_inertia)
 
 # ---------------------------------------------------------------------------
 # Lane-dialect quaternion / contact helpers
@@ -253,7 +249,7 @@ def _forest_consts(model) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Panel state: dict body index -> per-joint lane state
+# Block state: dict body index -> per-joint lane state
 #   scalar body i: q[i] = lane array, qd[i] = lane array
 #   free body i:   q[i] = (pos 3-vec, quat 4-list), qd[i] = (v 3, w_body 3)
 # ---------------------------------------------------------------------------
@@ -492,7 +488,7 @@ def _scatter_forces(mc, points, forces, jacs, rots,
 
 
 def _substep(mc, q, qd, u, force_fn, extras, joint_torque_fn=None):
-    """One semi-implicit Euler substep for the forest panel — the
+    """One semi-implicit Euler substep for the forest block — the
     engine.chain.step body (chain.py:576-604) with block-wise solves."""
     dt = np.float32(mc["dt"])
     rots, poss, axes, origins = _fk(mc, q)
@@ -637,7 +633,7 @@ def build_forest_rollout(model, n_substeps: int, act_bodies: Sequence[int],
                          force_fn, cost_fn, n_extras: int,
                          joint_torque_fn=None,
                          ulow: float = -1.0, uhigh: float = 1.0,
-                         tile_n: int = _TILE_N):
+                         block_n: int = None):
     """Fused rollout builder for a forest ChainModel with contact.
 
     act_bodies: body indices receiving u[:, j] (order = action layout);
@@ -657,28 +653,19 @@ def build_forest_rollout(model, n_substeps: int, act_bodies: Sequence[int],
         compensation, nail dry friction, door latch/strike-plate laws).
         fk = (rots, poss, axes, origins) at the current q.
 
+    block_n: particles per kernel program (kernel_path.block_size).
+
     Returns rollout(qpos [nq], qvel [nv], extras [n_extras],
                     mean [H, dA], noise [N, H, dA]) -> costs [N, H].
     """
     mc = _forest_consts(model)
     nq, nv = mc["nq"], mc["nv"]
-    d_act = len(act_bodies)
 
     def kernel(state_ref, mean_ref, noise_ref, costs_ref):
-        panel = costs_ref.shape[-2:]
-        # zero term with a materialized (non-replicated) vector layout:
-        # fori_loop carries seeded from bare broadcasts get a REPLICATED
-        # Mosaic layout, and the back-edge relayout from the loop body's
-        # computed (non-replicated) values is invalid ("Non-singleton
-        # logical dimension is replicated in destination but not in
-        # source"). Adding 0*iota forces the carry layout up front.
-        zero_mat = 0.0 * (
-            jax.lax.broadcasted_iota(jnp.int32, panel, 0)
-            + jax.lax.broadcasted_iota(jnp.int32, panel, 1)
-        ).astype(jnp.float32)
+        block = costs_ref.shape[-1:]
 
         def bc(x):
-            return jnp.broadcast_to(x, panel) + zero_mat
+            return jnp.broadcast_to(x, block)
 
         q, qd = {}, {}
         for i in range(mc["n"]):
@@ -744,9 +731,6 @@ def build_forest_rollout(model, n_substeps: int, act_bodies: Sequence[int],
         jax.lax.fori_loop(0, mean_ref.shape[0], outer, flatten(q, qd))
 
     def rollout(qpos, qvel, extras, mean, noise):
-        num_p, horizon = noise.shape[0], noise.shape[1]
-        eff, sub, n_pad = _panel(num_p, tile_n)
-        noise_t = _pack_lanes(noise, n_pad)
         width = max(nq, nv, n_extras)
         state = jnp.zeros((3, width), jnp.float32)
         state = state.at[0, :nq].set(jnp.asarray(qpos, jnp.float32))
@@ -754,26 +738,9 @@ def build_forest_rollout(model, n_substeps: int, act_bodies: Sequence[int],
         if n_extras:
             state = state.at[2, :n_extras].set(
                 jnp.asarray(extras, jnp.float32))
-        costs = pl.pallas_call(
-            kernel,
-            grid=(n_pad // eff,),   # single grid step (see pallas_chain)
-            in_specs=[
-                pl.BlockSpec((3, width), lambda j: (0, 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((horizon, d_act), lambda j: (0, 0),
-                             memory_space=pltpu.SMEM),
-                pl.BlockSpec((horizon, d_act, sub, _LANES),
-                             lambda j: (0, 0, j, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((horizon, 1, sub, _LANES),
-                                   lambda j: (0, 0, j, 0),
-                                   memory_space=pltpu.VMEM),
-            out_shape=jax.ShapeDtypeStruct(
-                (horizon, 1, n_pad // _LANES, _LANES), jnp.float32),
-            interpret=_interpret(),
-        )(state, jnp.asarray(mean, jnp.float32), noise_t)
-        return _unpack_panel(costs, num_p)
+        (costs,) = rollout_call(kernel, [state, mean], noise, [1],
+                                name="forest_rollout", block_n=block_n)
+        return costs
 
     # FLOP-accounting hook (harness.forest_perf): the kernel's per-substep
     # lane function and its callbacks, traceable OUTSIDE pallas via

@@ -3,7 +3,7 @@
 // Plays the role of the reference's first-party native component (the
 // Cython batched rollout, /root/reference/mjmpc/envs/gym_env_wrapper_cy.pyx:
 // a typed loop driving the simulator and collecting costs; build disabled
-// upstream). Used to validate the TPU engine's rollout numerics from an
+// upstream). Used to validate the JAX engine's rollout numerics from an
 // independent, serial, double-precision implementation:
 //   - AR(2) filtered-noise recurrence (control_utils.py:24-34 semantics)
 //   - discounted cost-to-go (control_utils.py:37-46)

@@ -1,4 +1,4 @@
-"""Parity-noise mode: run the TPU solver against the CPU reference math
+"""Parity-noise mode: run the JAX solver against the CPU reference math
 at identical seeds and compare control sequences.
 
 BASELINE.md requires 'control-sequence deviation within tolerance of CPU
@@ -11,7 +11,7 @@ both sides (SURVEY.md §7 'hard parts', plan (a)):
 
   CPU side:  serial double-precision rollout (C++ oracle) + NumPy
              reference update equations,
-  TPU side:  the framework's fused rollout + solver update with the same
+  JAX side:  the framework's fused rollout + solver update with the same
              injected noise,
 
 stepping both for `n_steps` MPC solves and reporting the worst deviation
@@ -36,12 +36,12 @@ def run_mppi_parity(n_steps: int = 10, horizon: int = 16,
                     lam: float = 0.05, step_size: float = 0.7,
                     gamma: float = 0.99,
                     filter_coeffs=(0.25, 0.8, 0.0),
-                    tpu_seed_offset: int = 0,
+                    jax_seed_offset: int = 0,
                     f64_rollout: bool = False) -> Tuple[float, float]:
     """(max control deviation, max mean-sequence deviation) over an
     n_step closed-loop pendulum run at identical injected noise.
 
-    f64_rollout runs the TPU-side rollout+update at double precision
+    f64_rollout runs the JAX-side rollout+update at double precision
     (jax_enable_x64), separating integration drift from update-math
     error: the f64 path must agree with the f64 CPU oracle to ~1e-8,
     while the production f32 path carries small integrator drift."""
@@ -54,7 +54,7 @@ def run_mppi_parity(n_steps: int = 10, horizon: int = 16,
     dtype = jnp.float64 if f64_rollout else jnp.float32
 
     @jax.jit
-    def tpu_update(mean, env_state, noise):
+    def jax_update(mean, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, dtype))
         traj = rollout_open_loop(env, env.params, env_state, state.mean,
@@ -66,10 +66,10 @@ def run_mppi_parity(n_steps: int = 10, horizon: int = 16,
                                       step_size)
 
     with _x64_if(f64_rollout):
-        return _run_parity((cpu_update, tpu_update), n_steps, horizon,
+        return _run_parity((cpu_update, jax_update), n_steps, horizon,
                            num_particles, base_seed,
                            filter_coeffs=filter_coeffs,
-                           tpu_seed_offset=tpu_seed_offset,
+                           jax_seed_offset=jax_seed_offset,
                            dtype=dtype)
 
 
@@ -92,22 +92,22 @@ def _x64_if(enabled: bool):
 
 
 def _run_parity(update_pair, n_steps, horizon, num_particles, base_seed,
-                filter_coeffs=(0.25, 0.8, 0.0), tpu_seed_offset=0,
+                filter_coeffs=(0.25, 0.8, 0.0), jax_seed_offset=0,
                 dtype=jnp.float32):
     """Shared closed-loop parity loop: update_pair = (cpu_update,
-    tpu_update) where each maps (mean, costs/traj pieces) -> new mean.
+    jax_update) where each maps (mean, costs/traj pieces) -> new mean.
 
-    tpu_seed_offset != 0 deliberately DESYNCHRONIZES the injected noise
-    (TPU side drawn at base_seed + t + offset) — used by the vacuity
+    jax_seed_offset != 0 deliberately DESYNCHRONIZES the injected noise
+    (JAX side drawn at base_seed + t + offset) — used by the vacuity
     guard in tests: mismatched seeds must NOT stay within tolerance."""
     env = envs.make("SimplePendulum-v0")
     cov = np.eye(1, dtype=np.float64)
-    cpu_update, tpu_update = update_pair
+    cpu_update, jax_update = update_pair
 
     env_state = env.init(env.params, jax.random.PRNGKey(1))
     th, thdot = float(env_state.th), float(env_state.thdot)
     mean_cpu = np.zeros((horizon, 1))
-    mean_tpu = np.zeros((horizon, 1))
+    mean_jax = np.zeros((horizon, 1))
     max_act_dev = 0.0
     max_mean_dev = 0.0
     from ..envs.pendulum import PendulumState
@@ -116,29 +116,29 @@ def _run_parity(update_pair, n_steps, horizon, num_particles, base_seed,
     for t in range(n_steps):
         noise = numpy_ref.generate_noise(
             cov, filter_coeffs, (num_particles, horizon), base_seed + t)
-        noise_tpu = noise if tpu_seed_offset == 0 else \
+        noise_jax = noise if jax_seed_offset == 0 else \
             numpy_ref.generate_noise(
                 cov, filter_coeffs, (num_particles, horizon),
-                base_seed + t + tpu_seed_offset)
+                base_seed + t + jax_seed_offset)
         costs_cpu = cpp_oracle.pendulum_rollout(
             env.params, th, thdot, mean_cpu, noise)
         mean_cpu = cpu_update(mean_cpu, mean_cpu[None] + noise, costs_cpu)
 
         env_state = PendulumState(th=jnp.asarray(th, dtype),
                                   thdot=jnp.asarray(thdot, dtype))
-        mean_tpu = np.asarray(tpu_update(mean_tpu, env_state, noise_tpu))
+        mean_jax = np.asarray(jax_update(mean_jax, env_state, noise_jax))
 
         max_mean_dev = max(max_mean_dev,
-                           float(np.abs(mean_cpu - mean_tpu).max()))
+                           float(np.abs(mean_cpu - mean_jax).max()))
         a_cpu = mean_cpu[0]
         max_act_dev = max(max_act_dev,
-                          float(np.abs(a_cpu - mean_tpu[0]).max()))
+                          float(np.abs(a_cpu - mean_jax[0]).max()))
         env_state, _, _, _ = step_fn(
             env.params, env_state,
             jnp.asarray(np.clip(a_cpu, -2, 2), jnp.float32))
         th, thdot = float(env_state.th), float(env_state.thdot)
         mean_cpu = np.vstack([mean_cpu[1:], np.zeros((1, 1))])
-        mean_tpu = np.vstack([mean_tpu[1:], np.zeros((1, 1))])
+        mean_jax = np.vstack([mean_jax[1:], np.zeros((1, 1))])
     return max_act_dev, max_mean_dev
 
 
@@ -151,7 +151,7 @@ def run_random_shooting_parity(n_steps=8, horizon=12, num_particles=48,
     gamma_seq = ops.gamma_sequence(gamma, horizon)
 
     @jax.jit
-    def tpu_update(mean, env_state, noise):
+    def jax_update(mean, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, jnp.float32))
         traj = rollout_open_loop(env, env.params, env_state, state.mean,
@@ -162,7 +162,7 @@ def run_random_shooting_parity(n_steps=8, horizon=12, num_particles=48,
         return numpy_ref.random_shooting_update(
             mean, actions, costs, gamma_seq, step_size)
 
-    return _run_parity((cpu_update, tpu_update), n_steps, horizon,
+    return _run_parity((cpu_update, jax_update), n_steps, horizon,
                        num_particles, base_seed)[0]
 
 
@@ -177,7 +177,7 @@ def run_cem_parity(n_steps=8, horizon=12, num_particles=48,
     gamma_seq = ops.gamma_sequence(gamma, horizon)
 
     @jax.jit
-    def tpu_update(mean, env_state, noise):
+    def jax_update(mean, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, jnp.float32))
         traj = rollout_open_loop(env, env.params, env_state, state.mean,
@@ -190,7 +190,7 @@ def run_cem_parity(n_steps=8, horizon=12, num_particles=48,
             step_size, "diagonal")
         return new_mean
 
-    return _run_parity((cpu_update, tpu_update), n_steps, horizon,
+    return _run_parity((cpu_update, jax_update), n_steps, horizon,
                        num_particles, base_seed)[0]
 
 
@@ -211,7 +211,7 @@ def run_dmd_parity(n_steps=8, horizon=12, num_particles=48,
     gamma_seq = ops.gamma_sequence(gamma, horizon)
 
     @jax.jit
-    def tpu_update(mean, cov, env_state, noise):
+    def jax_update(mean, cov, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, jnp.float32),
             cov=jnp.asarray(cov, jnp.float32))
@@ -225,8 +225,8 @@ def run_dmd_parity(n_steps=8, horizon=12, num_particles=48,
     th, thdot = float(env_state.th), float(env_state.thdot)
     mean_cpu = np.zeros((horizon, 1))
     cov_cpu = np.eye(1, dtype=np.float64)
-    mean_tpu = np.zeros((horizon, 1))
-    cov_tpu = np.eye(1, dtype=np.float64)
+    mean_jax = np.zeros((horizon, 1))
+    cov_jax = np.eye(1, dtype=np.float64)
     step_fn = jax.jit(env.step)
     max_dev = 0.0
 
@@ -244,22 +244,22 @@ def run_dmd_parity(n_steps=8, horizon=12, num_particles=48,
             lam, step_size, update_cov, cov_type)
 
         est = PendulumState(th=jnp.float32(th), thdot=jnp.float32(thdot))
-        m, c = tpu_update(mean_tpu, cov_tpu, est, noise)
-        mean_tpu, cov_tpu = np.asarray(m, np.float64), np.asarray(
+        m, c = jax_update(mean_jax, cov_jax, est, noise)
+        mean_jax, cov_jax = np.asarray(m, np.float64), np.asarray(
             c, np.float64)
 
-        max_dev = max(max_dev, float(np.abs(mean_cpu - mean_tpu).max()),
-                      float(np.abs(cov_cpu - cov_tpu).max()))
+        max_dev = max(max_dev, float(np.abs(mean_cpu - mean_jax).max()),
+                      float(np.abs(cov_cpu - cov_jax).max()))
         env_state, _, _, _ = step_fn(
             env.params, est,
             jnp.asarray(np.clip(mean_cpu[0], -2, 2), jnp.float32))
         th, thdot = float(env_state.th), float(env_state.thdot)
         # shift: roll mean, null last; cov += beta*I (gaussian_dmd:106-116)
         mean_cpu = np.vstack([mean_cpu[1:], np.zeros((1, 1))])
-        mean_tpu = np.vstack([mean_tpu[1:], np.zeros((1, 1))])
+        mean_jax = np.vstack([mean_jax[1:], np.zeros((1, 1))])
         if update_cov:
             cov_cpu = cov_cpu + beta * np.eye(1)
-            cov_tpu = cov_tpu + beta * np.eye(1)
+            cov_jax = cov_jax + beta * np.eye(1)
     return max_dev
 
 
@@ -278,7 +278,7 @@ def run_mppiq_parity(n_steps=8, horizon=12, num_particles=48,
         filter_coeffs=filter_coeffs, base_action="null")
 
     @jax.jit
-    def tpu_update(mean, env_state, noise):
+    def jax_update(mean, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, jnp.float32))
         traj = rollout_open_loop(env, env.params, env_state, state.mean,
@@ -290,7 +290,7 @@ def run_mppiq_parity(n_steps=8, horizon=12, num_particles=48,
             mean, np.eye(1), actions, costs, gamma, td_lam, beta,
             step_size, alpha, time_based_weights=True)
 
-    return _run_parity((cpu_update, tpu_update), n_steps, horizon,
+    return _run_parity((cpu_update, jax_update), n_steps, horizon,
                        num_particles, base_seed,
                        filter_coeffs=filter_coeffs)[0]
 
@@ -300,7 +300,7 @@ def run_pfmpc_parity(n_steps=6, horizon=12, num_particles=32,
                      cov_resample=0.5, filter_coeffs=(0.25, 0.8, 0.0)):
     """Chained PFMPC parity: the PERSISTENT particle set evolves on both
     sides — weights, the systematic resample (serial cumsum walk on CPU
-    vs vectorized searchsorted on TPU, pf:159-174), mean extraction, and
+    vs vectorized searchsorted in JAX, pf:159-174), mean extraction, and
     the shift-noise hotstart. All stochastic inputs (resample offset r,
     shift noise) are derived once from the solver's own counter-based
     streams and injected into BOTH sides."""
@@ -321,7 +321,7 @@ def run_pfmpc_parity(n_steps=6, horizon=12, num_particles=32,
     samples0 = np.asarray(init.action_samples, np.float64)
 
     @jax.jit
-    def tpu_step(samples, env_state, step):
+    def jax_step(samples, env_state, step):
         s = PFState(action_samples=jnp.asarray(samples, jnp.float32),
                     mean=jnp.mean(jnp.asarray(samples, jnp.float32), 0),
                     step=step, key=state_key)
@@ -334,7 +334,7 @@ def run_pfmpc_parity(n_steps=6, horizon=12, num_particles=32,
         return action, s.action_samples
 
     samples_cpu = samples0.copy()
-    samples_tpu = samples0.copy()
+    samples_jax = samples0.copy()
     env_state = env.init(env.params, jax.random.PRNGKey(1))
     th, thdot = float(env_state.th), float(env_state.thdot)
     step_fn = jax.jit(env.step)
@@ -365,13 +365,13 @@ def run_pfmpc_parity(n_steps=6, horizon=12, num_particles=32,
             [samples_cpu[:, 1:], samples_cpu[:, -1:]], axis=1) + shift_noise
         samples_cpu[:, -1] = samples_cpu[:, -2]
 
-        # TPU side: the framework's actual solve path
+        # JAX side: the framework's actual solve path
         est = PendulumState(th=jnp.float32(th), thdot=jnp.float32(thdot))
-        a_tpu, new_samples = tpu_step(samples_tpu, est, step)
-        samples_tpu = np.asarray(new_samples, np.float64)
+        a_jax, new_samples = jax_step(samples_jax, est, step)
+        samples_jax = np.asarray(new_samples, np.float64)
 
         max_act_dev = max(max_act_dev,
-                          float(np.abs(a_cpu - np.asarray(a_tpu)).max()))
+                          float(np.abs(a_cpu - np.asarray(a_jax)).max()))
         env_state, _, _, _ = step_fn(
             env.params, est, jnp.asarray(np.clip(a_cpu, -2, 2),
                                          jnp.float32))
@@ -382,7 +382,7 @@ def run_pfmpc_parity(n_steps=6, horizon=12, num_particles=32,
 # ---------------------------------------------------------------------------
 # 7-DOF arm parity (BASELINE north-star: reacher_7dof + sawyer tasks).
 # CPU side = serial f64 chain_site_rollout (C++ oracle, the engine's own
-# step semantics at double precision) + NumPy reference updates; TPU side
+# step semantics at double precision) + NumPy reference updates; JAX side
 # = the framework's fused rollout + solver update. Noise is the exact
 # reference multivariate procedure (control_utils.py:24-34) with per-dim
 # covariance, injected into both sides.
@@ -416,7 +416,7 @@ def run_reacher_mppi_parity(n_steps: int = 6, horizon: int = 10,
                             gamma: float = 1.0, alpha: int = 0,
                             filter_coeffs=(0.25, 0.8, 0.0),
                             init_cov=(0.3, 0.5, 0.7, 0.9, 0.5, 0.3, 0.2),
-                            tpu_seed_offset: int = 0,
+                            jax_seed_offset: int = 0,
                             env_name: str = "reacher_7dof-v0",
                             f64_rollout: bool = False):
     """Chained MPPI parity on the 7-DOF arm (reference
@@ -440,7 +440,7 @@ def run_reacher_mppi_parity(n_steps: int = 6, horizon: int = 10,
         dtype = jnp.float64 if f64_rollout else jnp.float32
 
         @jax.jit
-        def tpu_update(mean, env_state, noise):
+        def jax_update(mean, env_state, noise):
             # per-dim covariance goes in via the state (it feeds the
             # Sigma^-1 control-cost path when alpha=0)
             state = solver.init_state(jax.random.PRNGKey(0))._replace(
@@ -474,7 +474,7 @@ def run_reacher_mppi_parity(n_steps: int = 6, horizon: int = 10,
         q = np.zeros(7, np.float64)
         qd = np.zeros(7, np.float64)
         mean_cpu = np.zeros((horizon, d_action))
-        mean_tpu = np.zeros((horizon, d_action))
+        mean_jax = np.zeros((horizon, d_action))
         max_act_dev = 0.0
         max_mean_dev = 0.0
 
@@ -482,10 +482,10 @@ def run_reacher_mppi_parity(n_steps: int = 6, horizon: int = 10,
             noise = numpy_ref.generate_noise(
                 cov, filter_coeffs, (num_particles, horizon),
                 base_seed + t)
-            noise_tpu = noise if tpu_seed_offset == 0 else \
+            noise_jax = noise if jax_seed_offset == 0 else \
                 numpy_ref.generate_noise(
                     cov, filter_coeffs, (num_particles, horizon),
-                    base_seed + t + tpu_seed_offset)
+                    base_seed + t + jax_seed_offset)
 
             sites = cpp_oracle.chain_site_rollout(
                 model, q, qd, mean_cpu, noise, n_substeps=2)
@@ -494,20 +494,20 @@ def run_reacher_mppi_parity(n_steps: int = 6, horizon: int = 10,
                 mean_cpu, cov, mean_cpu[None] + noise, costs, gamma_seq,
                 lam, step_size, alpha)
 
-            mean_tpu = np.asarray(
-                tpu_update(mean_tpu, make_state(q, qd), noise_tpu),
+            mean_jax = np.asarray(
+                jax_update(mean_jax, make_state(q, qd), noise_jax),
                 np.float64)
 
             max_mean_dev = max(max_mean_dev,
-                               float(np.abs(mean_cpu - mean_tpu).max()))
+                               float(np.abs(mean_cpu - mean_jax).max()))
             a_cpu = mean_cpu[0]
             max_act_dev = max(max_act_dev,
-                              float(np.abs(a_cpu - mean_tpu[0]).max()))
+                              float(np.abs(a_cpu - mean_jax[0]).max()))
             q, qd = cpp_oracle.chain_step(
                 model, q, qd, np.clip(a_cpu, -1.0, 1.0), n_substeps=2)
             mean_cpu = np.vstack([mean_cpu[1:],
                                   np.zeros((1, d_action))])
-            mean_tpu = np.vstack([mean_tpu[1:],
+            mean_jax = np.vstack([mean_jax[1:],
                                   np.zeros((1, d_action))])
     return max_act_dev, max_mean_dev
 
@@ -538,7 +538,7 @@ def run_reacher_cem_full_parity(n_steps: int = 6, horizon: int = 10,
     gamma_seq = np.asarray(ops.gamma_sequence(gamma, horizon), np.float64)
 
     @jax.jit
-    def tpu_update(mean, cov, env_state, noise):
+    def jax_update(mean, cov, env_state, noise):
         state = solver.init_state(jax.random.PRNGKey(0))._replace(
             mean=jnp.asarray(mean, jnp.float32),
             cov=jnp.asarray(cov, jnp.float32))
@@ -560,8 +560,8 @@ def run_reacher_cem_full_parity(n_steps: int = 6, horizon: int = 10,
     qd = np.zeros(7, np.float64)
     mean_cpu = np.zeros((horizon, d_action))
     cov_cpu = np.eye(d_action)
-    mean_tpu = np.zeros((horizon, d_action))
-    cov_tpu = np.eye(d_action)
+    mean_jax = np.zeros((horizon, d_action))
+    cov_jax = np.eye(d_action)
     max_dev = 0.0
 
     for t in range(n_steps):
@@ -577,23 +577,23 @@ def run_reacher_cem_full_parity(n_steps: int = 6, horizon: int = 10,
             mean_cpu, cov_cpu, mean_cpu[None] + noise, costs, gamma_seq,
             elite_frac, step_size, "full")
 
-        m, c = tpu_update(mean_tpu, cov_tpu, make_state(q, qd), noise)
-        mean_tpu = np.asarray(m, np.float64)
-        cov_tpu = np.asarray(c, np.float64)
+        m, c = jax_update(mean_jax, cov_jax, make_state(q, qd), noise)
+        mean_jax = np.asarray(m, np.float64)
+        cov_jax = np.asarray(c, np.float64)
 
         max_dev = max(max_dev,
-                      float(np.abs(mean_cpu - mean_tpu).max()),
-                      float(np.abs(cov_cpu - cov_tpu).max()))
+                      float(np.abs(mean_cpu - mean_jax).max()),
+                      float(np.abs(cov_cpu - cov_jax).max()))
         a_cpu = mean_cpu[0]
         q, qd = cpp_oracle.chain_step(
             model, q, qd, np.clip(a_cpu, -1.0, 1.0), n_substeps=2)
         # shift: roll mean, null last; cov += beta*diag(init_cov)
         # (cem.py:89-95, init_cov = 1)
         mean_cpu = np.vstack([mean_cpu[1:], np.zeros((1, d_action))])
-        mean_tpu = np.vstack([mean_tpu[1:], np.zeros((1, d_action))])
+        mean_jax = np.vstack([mean_jax[1:], np.zeros((1, d_action))])
         grow = beta * np.eye(d_action)
         cov_cpu = cov_cpu + grow
-        cov_tpu = cov_tpu + grow
+        cov_jax = cov_jax + grow
     return max_dev
 
 

@@ -1,16 +1,21 @@
 """Device mesh construction for particle-parallel MPC.
 
 The reference's only parallelism is particle-data-parallel rollouts over OS
-processes with a pipe scatter/gather (SubprocVecEnv,
-/root/reference/mjmpc/envs/vec_env/subproc_vec_env.py:161-186). On TPU the
+processes with a pipe scatter/gather (SubprocVecEnv, reference
+mjmpc/envs/vec_env/subproc_vec_env.py:161-186). On a set of GPUs the
 same decomposition becomes a `jax.sharding.Mesh` with two logical axes:
 
-- ``particles``: the MPC sampling batch, sharded over ICI within a slice.
-  Every solver reduction (MPPI softmax-weighted sums, CEM top-k, PF
-  resampling prefix sums) rides this axis as XLA collectives.
+- ``particles``: the MPC sampling batch. Every solver reduction (MPPI
+  softmax-weighted sums, CEM top-k, PF resampling prefix sums) rides this
+  axis as XLA collectives, which XLA hands to NCCL.
 - ``episodes``: independent episodes / sweep cells (the reference's
-  job_script tune/sweep grid and n_episodes loop), sharded over the
-  slowest links (DCN across hosts) because episodes never communicate.
+  job_script tune/sweep grid and n_episodes loop); episodes never
+  communicate during a solve.
+
+The four cards of one host are joined all to all by NVLink, so every
+card reaches every other at the same rate and the mesh shape follows the
+algorithm alone: (1, 4) shards one solve's particles over all four
+cards, (4, 1) runs four independent episodes, one per card.
 
 Single-program SPMD replaces the worker command protocol entirely: there is
 no scatter, no gather, no broadcast of env state — just sharded arrays.
@@ -34,8 +39,7 @@ def make_mesh(episodes: int = 1, particles: Optional[int] = None,
 
     Defaults to all local+addressable devices on the particles axis —
     the single-host production layout. Multi-host layouts put the host
-    dimension on the episodes axis so cross-host traffic is zero during a
-    solve (weak scaling over DCN).
+    dimension on the episodes axis so no solve crosses hosts.
     """
     devs = np.asarray(devices if devices is not None else jax.devices())
     if particles is None:
@@ -75,10 +79,11 @@ def pad_particles(num_particles: int, mesh: Mesh) -> int:
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize wrapper for pod-slice / multi-host runs.
+    """jax.distributed.initialize wrapper for multi-host runs.
 
-    On TPU pods the arguments are discovered from the environment; on CPU
-    fleets pass them explicitly. No-op if already initialized.
+    Pass the coordinator address (host:port), the number of processes and
+    this process's id explicitly: nothing in a plain GPU cluster lets JAX
+    discover them. No-op if already initialized.
     """
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,

@@ -7,7 +7,7 @@ Mapping from the reference (SURVEY.md §2.5):
 - per-worker serial rollout           -> sharded vmap inside lax.scan.
 - gather + np.concatenate             -> never materialized; solver
   reductions (softmax sums, top-k, prefix sums) lower to psum/all-gather
-  over ICI via GSPMD.
+  collectives via GSPMD (NCCL between GPUs).
 - set_env_state broadcast             -> env state replicated.
 
 Everything below is plain jit-with-shardings: we constrain only the

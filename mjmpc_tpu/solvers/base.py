@@ -25,6 +25,7 @@ import numpy as np
 
 from .. import ops
 from ..envs.base import Env
+from ..ops.kernel_path import auto_fused
 from ..rollout.engine import Trajectories, rollout_open_loop
 
 # Key-derivation tags (disjoint RNG streams per consumer).
@@ -65,7 +66,6 @@ class GaussianMPC:
     cov_type: str = "diagonal"
     use_zero_control_seq: bool = False
     sample_mode: str = "mean"            # mean | sample
-    noise_impl: str = "xla"              # xla | pallas (TPU-only kernel)
     action_lows: Optional[np.ndarray] = None
     action_highs: Optional[np.ndarray] = None
 
@@ -100,21 +100,9 @@ class GaussianMPC:
         """AR(2)-filtered Gaussian noise [N, H, dA]
         (reference olgaussian_mpc.py:88-93)."""
         key = _fold(state.key, _TAG_ROLLOUT, state.step)
-        if self.noise_impl == "pallas":
-            # Fused sample+AR-filter Pallas kernel (TPU only — pltpu.prng
-            # has no CPU interpreter path). Same distribution family as
-            # the XLA path, different stream.
-            from ..ops import pallas_kernels as pk
-            jitter = 1e-6 * jnp.eye(self.d_action, dtype=state.cov.dtype)
-            chol = jnp.linalg.cholesky(state.cov + jitter)
-            seed = jax.random.key_data(key).ravel()[-1].astype(jnp.int32)
-            delta = pk.filtered_noise_pallas(
-                seed, (self.num_particles, self.horizon), self.d_action,
-                self.filter_coeffs, chol=chol)
-        else:
-            delta = ops.filtered_noise(key, state.cov,
-                                       (self.num_particles, self.horizon),
-                                       self.filter_coeffs)
+        delta = ops.filtered_noise(key, state.cov,
+                                   (self.num_particles, self.horizon),
+                                   self.filter_coeffs)
         if self.use_zero_control_seq:
             # Last particle probes the zero-action sequence
             # (olgaussian_mpc.py:110-111).
@@ -179,13 +167,15 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
     shard_particles: optional fn(x) -> x applying a sharding constraint to
     arrays whose leading axis is the particle axis (see parallel.sharded).
     GSPMD then propagates the layout through the rollout scan and lowers
-    the solver's particle reductions to ICI collectives.
+    the solver's particle reductions to collectives between devices.
 
     fused: use the env's fused Pallas rollout. "auto" = yes when the env
     provides one matching the solver's trajectory needs (costs-only
     `fused_rollout` for solvers that never read observations;
     `fused_obs_rollout` for observation-consuming ones like MPPIQ with
-    a plugged Q) and the solve is unsharded. Pass False when planning
+    a plugged Q), the solve is unsharded, and the kernel is compiled on
+    this platform (ops.kernel_path.auto_fused: the GPU; on the CPU the
+    kernel runs only when asked for with fused=True). Pass False when planning
     against params that differ from the env's build-time params in
     leaves OUTSIDE the kernel's `dynamic_fields` (the kernel bakes model
     constants; contact gains/radii listed in `fused_rollout
@@ -196,15 +186,7 @@ def build_solve_fn(solver: GaussianMPC, env: Env, calc_val: bool = False,
     if fused == "auto":
         kernel = (env.fused_obs_rollout if solver.uses_observations
                   else env.fused_rollout)
-        fused = (kernel is not None
-                 and shard_particles is None
-                 # kernels marked cpu_auto=False (the hand-suite forest
-                 # kernels) only auto-engage on real TPU: their
-                 # interpret-mode XLA-CPU codegen takes >10 min per
-                 # (H, N) shape, so CPU runs keep the general path
-                 # unless the caller passes fused=True explicitly
-                 and (getattr(kernel, "cpu_auto", True)
-                      or jax.default_backend() == "tpu"))
+        fused = auto_fused(kernel, sharded=shard_particles is not None)
 
     def do_rollout(env_params, env_state, mean, noise):
         if fused and solver.uses_observations:

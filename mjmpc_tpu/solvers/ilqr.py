@@ -12,7 +12,7 @@ REAL iLQR falls out of jax.jacfwd:
 - backward Riccati pass with Levenberg-Marquardt regularization on Quu
   (lax.scan in reverse);
 - line search on the feedforward gain (static backtracking set, evaluated
-  in parallel — pick the best rollout, a TPU-friendly alternative to a
+  in parallel — pick the best rollout, an accelerator-friendly alternative to a
   sequential while-loop).
 
 State cost is obtained by differentiating the env's own reward.

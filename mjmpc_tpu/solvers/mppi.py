@@ -51,10 +51,14 @@ class MPPI(GaussianMPC):
         """mppi.py:69-82."""
         delta = traj.actions - state.mean[None, :, :]
         w = self._exp_util(state, traj.costs, delta)
+        # HIGHEST: a GPU runs a default-precision f32 contraction in TF32
+        hi = jax.lax.Precision.HIGHEST
         if self.time_based_weights:
-            weighted = jnp.einsum("nh,nhd->hd", w, traj.actions)
+            weighted = jnp.einsum("nh,nhd->hd", w, traj.actions,
+                                  precision=hi)
         else:
-            weighted = jnp.einsum("n,nhd->hd", w, traj.actions)
+            weighted = jnp.einsum("n,nhd->hd", w, traj.actions,
+                                  precision=hi)
         return state._replace(mean=self._interp_mean(state.mean, weighted))
 
     def value(self, state: GaussianState, traj: Trajectories) -> jax.Array:

@@ -21,6 +21,7 @@ import numpy as np
 
 from .. import ops
 from ..envs.base import Env
+from ..ops.kernel_path import auto_fused
 from ..rollout.engine import Trajectories, rollout_open_loop
 
 from .base import _fold  # single RNG-derivation point
@@ -133,19 +134,13 @@ def build_solve_fn(solver: PFMPC, env: Env, hotstart: bool = True,
 
     fused: PFMPC's update consumes only trajectory COSTS, so the env's
     costs-only fused Pallas rollout applies exactly as in
-    base.build_solve_fn ("auto" = yes when available, unsharded, and
-    not a cpu_auto=False kernel off-TPU). Without it, a hand-env PFMPC
-    episode compiles the general XLA contact rollout at episode scale —
-    the program the pen docstring warns crashes the remote TPU worker
-    (observed: every pfmpc hand cell of the r05 sweep died with
-    'TPU worker process crashed' while fused mppi/mppiq/cem cells ran).
+    base.build_solve_fn ("auto" = ops.kernel_path.auto_fused: available,
+    unsharded, and compiled on this platform).
     """
     shard = shard_particles or (lambda x: x)
     if fused == "auto":
-        kernel = env.fused_rollout
-        fused = (kernel is not None and shard_particles is None
-                 and (getattr(kernel, "cpu_auto", True)
-                      or jax.default_backend() == "tpu"))
+        fused = auto_fused(env.fused_rollout,
+                           sharded=shard_particles is not None)
 
     def do_rollout(env_params, env_state, mean, delta):
         if fused:

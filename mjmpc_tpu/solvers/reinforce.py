@@ -35,6 +35,7 @@ import numpy as np
 
 from .. import ops
 from ..envs.base import Env
+from ..ops.kernel_path import auto_fused
 from ..rollout.engine import Trajectories, rollout_closed_loop_linear
 from ..value_functions import make_vf
 
@@ -199,16 +200,15 @@ def build_solve_fn(solver: Reinforce, env: Env, shard_particles=None,
     fused: use the env's fused closed-loop Pallas rollout
     (ops/pallas_chain.build_chain_cl_rollout — obs + policy matmul +
     physics + cost in one kernel). "auto" = yes when the env provides
-    one and the solve is unsharded; the update consumes only the
+    one, the solve is unsharded and the kernel is compiled on this
+    platform (ops.kernel_path.auto_fused); the update consumes only the
     (obs, actions, costs) records the kernel emits. Pass False when
     planning against params differing from the env's build-time params
     (the kernel bakes model constants)."""
     shard = shard_particles or (lambda x: x)
     if fused == "auto":
-        fused = (env.fused_cl_rollout is not None
-                 and shard_particles is None
-                 and (getattr(env.fused_cl_rollout, "cpu_auto", True)
-                      or jax.default_backend() == "tpu"))
+        fused = auto_fused(env.fused_cl_rollout,
+                           sharded=shard_particles is not None)
 
     def do_rollout(env_params, env_state, weights, noise):
         if fused:

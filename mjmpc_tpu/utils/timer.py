@@ -1,6 +1,6 @@
 """Named accumulating timers (reference mjmpc/utils/timer.py:4-44).
 
-On TPU the numbers are only meaningful around blocking points
+On an accelerator the numbers are only meaningful around blocking points
 (block_until_ready / device_get) — dispatch is async. Use
 jax.profiler.trace for kernel-level timing; this is the coarse
 percent-of-total report the reference drivers print.

@@ -1,6 +1,6 @@
 """C++ CPU oracle vs the JAX compute path: independent double-precision
 serial implementations of the rollout/noise/cost math must agree with the
-vectorized TPU-path code to float32 tolerance."""
+vectorized JAX-path code to float32 tolerance."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -64,7 +64,7 @@ def test_lqr_rollout_parity(rng):
 
 
 def test_mppi_update_end_to_end_parity(rng):
-    """Full MPPI mean update on identical injected rollouts: the TPU-path
+    """Full MPPI mean update on identical injected rollouts: the JAX-path
     solver vs the serial C++ implementation (BASELINE 'control-sequence
     deviation within tolerance' check, CPU leg)."""
     env = envs.make("SimplePendulum-v0")

@@ -1,6 +1,6 @@
 """Fused Pallas chain-rollout kernel vs the XLA engine and the f64 C++
-oracle (ops/pallas_chain.py — the round-3 speed-of-light path for the
-reacher/sawyer arm family; runs in interpreter mode on the CPU mesh)."""
+oracle (ops/pallas_chain.py — the fused path for the reacher/sawyer arm
+family; runs in interpreter mode on the CPU mesh)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,15 +79,17 @@ def test_fused_solve_matches_general_solve():
 
 
 def test_fused_auto_gating():
-    """auto mode: on for plain MPPI on reacher, off for sharded solves,
-    off for MPPIQ with a plugged q_fn, off for envs without a kernel."""
+    """auto mode engages a kernel only where it is compiled (the GPU): on
+    the CPU every solve, MPPIQ with a plugged q_fn included, takes the
+    general path; envs without a kernel have none to engage."""
+    from mjmpc_tpu.ops.kernel_path import auto_fused
     env = envs.make("reacher_7dof-v0")
+    assert env.fused_obs_rollout is not None
+    assert not auto_fused(env.fused_obs_rollout)
     mppiq = solvers.MPPIQ(d_action=7, horizon=4, num_particles=8,
                           q_fn=lambda obs, act: jnp.zeros(obs.shape[:-1]))
     s0 = mppiq.init_state(jax.random.PRNGKey(0))
     es = env.init(env.params, jax.random.PRNGKey(1))
-    # must run through the general path (fused would crash on
-    # observations=None)
     a, _, _ = jax.jit(solvers.build_solve_fn(mppiq, env))(
         env.params, es, s0)
     assert np.isfinite(np.asarray(a)).all()

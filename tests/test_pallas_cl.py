@@ -5,7 +5,7 @@ observation, the policy matmul u = W.T [obs; 1] + eps, the physics, and
 the cost inside one kernel and emits the (obs, actions, costs) records
 the Reinforce policy-gradient update consumes. Parity target:
 rollout_closed_loop_linear over reacher_7dof-v0 (interpreter mode on
-the CPU mesh; the same kernel runs compiled on TPU).
+the CPU mesh; the same kernel runs compiled on the GPU).
 """
 import jax
 import jax.numpy as jnp

@@ -6,9 +6,7 @@ v0/v1/fixed-v1) ride the generic forest kernel builder
 (ops/pallas_forest.py) with env-specific cost / contact / joint-torque
 callbacks, the same pattern as the hand suite. Unlike the 21-body hand
 kernels these 8-11 body models compile in seconds on XLA-CPU, so the
-parity tests run unconditionally in CI and the kernels keep the default
-cpu_auto (measured 7.5x faster than the engine path on CPU at
-production scale, on top of the ~500x on TPU).
+parity tests run unconditionally in CI.
 
 Coverage per env of kernel features:
 - peg insertion: pure 7-joint chain, cost-only plug (depth-progress

@@ -1,5 +1,5 @@
 """BASELINE parity-noise mode: multi-step closed-loop control-sequence
-deviation between the TPU solver and the CPU reference math at identical
+deviation between the JAX solver and the CPU reference math at identical
 injected reference noise stays within float32 tolerance."""
 import numpy as np
 
@@ -16,11 +16,11 @@ def test_mppi_control_sequence_parity():
 
 def test_parity_deviation_grows_with_different_seeds():
     """Vacuity guard: the comparison actually measures something.
-    DESYNCHRONIZE the injected noise (TPU side at base_seed + offset) and
+    DESYNCHRONIZE the injected noise (JAX side at base_seed + offset) and
     the two sides must NOT stay within the parity tolerance."""
     mismatched, _ = parity.run_mppi_parity(
         n_steps=3, horizon=8, num_particles=32, base_seed=1,
-        tpu_seed_offset=1000)
+        jax_seed_offset=1000)
     assert mismatched > 5e-2, mismatched
     # and re-synchronized runs stay tight
     matched, _ = parity.run_mppi_parity(n_steps=3, horizon=8,
@@ -29,7 +29,7 @@ def test_parity_deviation_grows_with_different_seeds():
 
 
 def test_mppi_parity_f64_rollout_is_exact():
-    """f64 TPU-side rollout vs the f64 CPU oracle: with integration
+    """f64 JAX-side rollout vs the f64 CPU oracle: with integration
     precision equalized, any residual deviation is update-math error —
     this pins the 5e-3 f32 tolerance above on integrator drift, not on
     a math mismatch (VERDICT r2 weak #3)."""
@@ -65,7 +65,7 @@ def test_reacher_7dof_parity_desync_guard():
     stay within tolerance."""
     bad, _ = parity.run_reacher_mppi_parity(
         n_steps=3, horizon=8, num_particles=24, base_seed=1,
-        tpu_seed_offset=1000)
+        jax_seed_offset=1000)
     assert bad > 5e-2, bad
 
 
